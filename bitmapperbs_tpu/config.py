@@ -17,10 +17,9 @@ class AlignerConfig:
     indels: bool = True          # False -> Hamming-only fast path (config 1)
 
     # --- seeding policy (frozen spec: pigeonhole e+1 equal slices) ---------
-    # Defaults re-tuned round 2 on the 100 Mbp benchmark: raising the caps
-    # from (64, 64, 32) recovers most heavy-seed recall loss (0.9775 ->
-    # 0.9900) at UNCHANGED throughput, because the compact pipeline's cost
-    # is set by the flat-buffer size (resolve_flat_cap), not these budgets.
+    # Raising the caps from (64, 64, 32) recovered most heavy-seed recall
+    # loss at 100 Mbp (0.9775 -> 0.9900); the compact pipeline's cost is
+    # set by the flat-buffer size (resolve_flat_cap), not these budgets.
     max_seed_occ: int = 128      # seed interval wider than this is skipped
     locate_budget: int = 256     # SA entries located per read per (pat,block)
     max_candidates: int = 64     # verified anchors per read per (pat,block)
@@ -51,7 +50,8 @@ class AlignerConfig:
     # --- device / parallelism ---------------------------------------------
     mesh_shape: tuple[int, ...] = (1,)
     mesh_axes: tuple[str, ...] = ("data",)
-    use_pallas: bool = True      # False -> pure-jnp kernels (CPU tests)
+    use_pallas: bool = True      # GPU kernels on the GPU (ops/kernels.py);
+    #                              False -> the jnp spec everywhere
 
     # --- compacted candidate pipeline ---------------------------------------
     # The locate/verify stages run over a flat buffer holding only OCCUPIED
@@ -86,11 +86,11 @@ class AlignerConfig:
         hard = num_frames * self.locate_budget   # per-read entries never exceed
         if self.locate_flat_cap > 0:
             return min(self.locate_flat_cap, hard)
-        # Fitted to measured mean occupancy (PERF.md round-2 cap tuning):
+        # Fitted to measured mean occupancy (PERF.md, flat-cap sizing):
         # 6.5 entries/read at 10 Mbp, 29.4 at 100 Mbp -> occupancy ~
         # (len/1M)^0.66; cap at ~1.5x the mean leaves gdrop-free headroom
-        # while cutting the idle-lane locate/verify gather volume that a
-        # round-up cap was paying (cap 67 -> 42 at 100 Mbp = +46% SE).
+        # while cutting the idle-lane locate/verify work that a larger cap
+        # pays for.
         # num_frames scales occupancy ~linearly (non-directional = 4 frames
         # = ~2x the entries of directional's 2; measured: PBAT at 100 Mbp
         # gdropped 43% of reads under the 2-frame cap)
@@ -112,6 +112,13 @@ class AlignerConfig:
 
     def replace(self, **kw) -> "AlignerConfig":
         return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "AlignerConfig":
+        """Inverse of dataclasses.asdict after a JSON round trip (JSON
+        arrays back to the hashable tuples a static jit argument needs)."""
+        return cls(**{k: tuple(v) if isinstance(v, list) else v
+                      for k, v in d.items()})
 
     def validate(self) -> None:
         if self.max_errors < 0 or self.max_errors > 15:

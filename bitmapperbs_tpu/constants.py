@@ -71,9 +71,7 @@ CONV_TAGS = {(0, 0): ("CT", "CT"), (1, 0): ("CT", "GA"),
 
 # ---- FM-index physical layout ----------------------------------------------
 # Checkpointed bit-plane BWT with SA-sample mark bits folded into the SAME
-# row, because TPU gather cost is per-ROW, not per-byte (measured: a 1M-lane
-# gather costs ~31 ms whether rows are 1 or 32 words wide) -- one gather per
-# LF step fetches everything the step needs.
+# row, so one row gather per LF step fetches everything the step needs.
 #   row = [cnt_sentinel, cnt_A, cnt_G, cnt_T,   0..3   cumulative occ
 #          p0w0..p0w3,                          4..7   BWT bit-plane 0
 #          p1w0..p1w3,                          8..11  BWT bit-plane 1
@@ -88,10 +86,10 @@ CP_ROW_U32 = CP_MARK_OFF + 1 + CP_WORDS          # 17
 # SA sampling (text-order): SA rows i with SA[i] % sa_rate == 0 are marked;
 # an LF walk reaches a mark in < sa_rate steps (bounded unroll).  The rate is
 # a per-index build parameter (stored in the artifact): it trades sample
-# memory (4n/rate bytes/block) against LF-walk gather count -- the
-# TPU-specific trade-off of SURVEY.md hard-part 1.  Default 8: locate is one
-# of the gather-bound hot loops and halving the walk beats the extra HBM
-# (GRCh38 two-block samples at rate 8 ~= 3.1 GB, still comfortable).
+# memory (4n/rate bytes/block) against LF-walk gather count (SURVEY.md
+# hard-part 1).  DEFAULT_SA_RATE 8 is the cap for the largest genomes
+# (GRCh38 two-block samples at rate 8 ~= 3.1 GB); index/build.py picks 4
+# below 3.5 Gbp.
 DEFAULT_SA_RATE = 8
 
 # k-mer lookup table (KLT): the first KLT k backward-search steps of every
@@ -102,12 +100,9 @@ DEFAULT_SA_RATE = 8
 # fixed cost in the seeding stage.  Entries store the same frozen-on-empty
 # semantics as the search loop, so KLT-initialized search is bit-identical.
 # k is a per-index build parameter; 14 -> 3^14 * 2 u32 = 38 MB per block
-# (each +1 of k trades HBM and build time for one serial occ gather per
-# seed).  Round-5 sweep on the 3 Gbp sa_rate-4 artifact (human_bench
-# --klt): 14 -> 15,084 reads/s/chip, 15 -> 15,264, 16 -> 15,565 (+3.2%,
-# outputs identical), table 38 -> 689 MB -- trivially affordable next to a
-# 12.6 GB index, so Gbp-scale builds default to 16; small genomes keep 14
-# (a 689 MB table beside a 0.5 GB index is wasted HBM for the same +3%).
+# (each +1 of k trades device memory and build time for one serial occ
+# gather per seed).  Gbp-scale builds default to 16 (689 MB, small beside a
+# 12.6 GB index; outputs are identical at any k); small genomes keep 14.
 KLT_MAX_K = 14
 KLT_MAX_K_GBP = 16          # genomes over KLT_GBP_THRESHOLD bp
 KLT_GBP_THRESHOLD = 512_000_000

@@ -19,9 +19,9 @@ The result is byte-identical to building directly at the halved rate
 unchanged, only its density parameter.
 
 Reference parity note: the reference fixes its SA sample rate at build
-time (SURVEY.md C6); post-hoc densification is a new capability motivated
-by the TPU cost model (locate steps are lockstep gathers, so rate directly
-multiplies the dominant gather volume).
+time (SURVEY.md C6); post-hoc densification is a new capability: locate
+steps are lockstep gathers, so the rate directly multiplies the locate
+stage's gather volume.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 // Native single-end finalize: device outputs -> SAM record fields.
 //
 // Reference parity: BitMapperBS's traceback/output stage is native C
-// (SURVEY.md C13/C18); this is the TPU framework's equivalent for the host
+// (SURVEY.md C13/C18); this is this package's equivalent for the host
 // side of the pipeline.  Semantics are a line-for-line translation of the
 // frozen numpy implementation in models/finalize.py (which itself is
 // byte-identical to the per-read oracle finalize_hit) -- the numpy path

@@ -190,3 +190,38 @@ class BamWriter:
 
     def close(self) -> None:
         self.bgzf.close()
+
+
+def read_bam_records(path) -> tuple[str, list[bytes]]:
+    """BAM file -> (header text, raw alignment records).
+
+    Each record is its encoded body without the block_size prefix, so two
+    files hold the same alignments iff their records are equal bytes.
+    BGZF is multi-member gzip, which gzip.decompress reads whole."""
+    import gzip
+
+    with open(path, "rb") as f:
+        raw = gzip.decompress(f.read())
+    if raw[:4] != b"BAM\1":
+        raise ValueError(f"{path}: not a BAM file")
+    l_text, = struct.unpack_from("<i", raw, 4)
+    text = raw[8:8 + l_text].decode()
+    off = 8 + l_text
+    n_ref, = struct.unpack_from("<i", raw, off)
+    off += 4
+    for _ in range(n_ref):
+        l_name, = struct.unpack_from("<i", raw, off)
+        off += 8 + l_name
+    recs = []
+    while off < len(raw):
+        size, = struct.unpack_from("<i", raw, off)
+        recs.append(raw[off + 4:off + 4 + size])
+        off += 4 + size
+    return text, recs
+
+
+def bam_record_fields(body: bytes) -> tuple[str, int, int, int, int]:
+    """(qname, flag, ref_id, 0-based pos, mapq) of a raw BAM record."""
+    ref_id, pos, l_name, mapq, _bin, _ncig, flag = struct.unpack_from(
+        "<iiBBHHH", body, 0)
+    return body[32:32 + l_name - 1].decode(), flag, ref_id, pos, mapq

@@ -65,7 +65,7 @@ class FastqReader:
         self._offset = resume_offset       # offset after last yielded record
         self._yielded = 0
         # Chunk-vectorized parser: per-line readline() capped the reader at
-        # ~270k reads/s on one core -- far below what a multi-chip host
+        # ~270k reads/s on one core -- far below what a multi-device host
         # needs to feed.  A chunk's newline positions, line bounds,
         # whitespace strips, header checks, and qname token bounds are all
         # computed with numpy; sequence bytes get ONE LUT pass per chunk

@@ -20,6 +20,8 @@ class MapStats:
     proper_pairs: int = 0       # record-level count
     overflow_reads: int = 0     # candidate-capacity truncations (critical:
                                 # silent caps eat recall -- SURVEY.md 5.5)
+    gdrop_reads: int = 0        # flat-buffer overflows re-run on the dense
+                                # path (each costs a second device pass)
     nm_hist: dict = dataclasses.field(default_factory=dict)
 
     def add_record(self, rec: SamRecord) -> None:
@@ -39,7 +41,7 @@ class MapStats:
 
     def merge(self, other: "MapStats") -> None:
         for f in ("total", "mapped", "unique", "ambiguous", "unmapped",
-                  "proper_pairs", "overflow_reads"):
+                  "proper_pairs", "overflow_reads", "gdrop_reads"):
             setattr(self, f, getattr(self, f) + getattr(other, f))
         for k, v in other.nm_hist.items():
             self.nm_hist[k] = self.nm_hist.get(k, 0) + v
@@ -52,12 +54,13 @@ class MapStats:
             f"mapped: {self.mapped} ({pct(self.mapped)})  "
             f"unique: {self.unique} ({pct(self.unique)})  "
             f"ambiguous: {self.ambiguous}  unmapped: {self.unmapped}  "
-            f"proper: {self.proper_pairs}  overflow: {self.overflow_reads}\n")
+            f"proper: {self.proper_pairs}  overflow: {self.overflow_reads}  "
+            f"gdrop: {self.gdrop_reads}\n")
         if wall_s:
             fh.write(f"[bitmapperbs_tpu] {self.total / wall_s:.0f} reads/s "
                      f"({wall_s:.1f}s)\n")
 
-    def to_json(self) -> str:
+    def to_json(self, **extra) -> str:
         d = dataclasses.asdict(self)
         d["nm_hist"] = {str(k): v for k, v in sorted(self.nm_hist.items())}
-        return json.dumps(d)
+        return json.dumps({**d, **extra})

@@ -1,4 +1,4 @@
-"""The jit-compiled single-end device mapping pipeline (SURVEY.md L4 TPU
+"""The jit-compiled single-end device mapping pipeline (SURVEY.md L4
 restatement, call stack 3.2): convert -> seed -> locate -> dedup/cap ->
 Hamming filter -> Myers verify -> order-free best/second selection.
 
@@ -25,14 +25,7 @@ from bitmapperbs_tpu import constants as K
 from bitmapperbs_tpu.config import AlignerConfig
 from bitmapperbs_tpu.index.device import DeviceIndex
 from bitmapperbs_tpu.ops import fm, verify
-
-
-def myers_fn(cfg: AlignerConfig):
-    """Pallas kernel on TPU, jnp fallback elsewhere (bit-identical)."""
-    if cfg.use_pallas and jax.default_backend() == "tpu":
-        from bitmapperbs_tpu.ops.pallas_kernels import myers_pallas
-        return myers_pallas
-    return verify.myers
+from bitmapperbs_tpu.ops.kernels import verify_impl
 
 U32 = jnp.uint32
 # numpy scalars: identical inside jit, but importing this module must
@@ -234,7 +227,7 @@ def candidate_grids(dix: DeviceIndex, cfg: AlignerConfig, reads, lengths,
         peq, pad = verify.build_peq(frame_reads, lengths[:, None], m)
         peq_b = jnp.broadcast_to(peq[:, :, None], (B, F, Kc, 4, Wd))
         pad_b = jnp.broadcast_to(pad[:, :, None], (B, F, Kc, Wd))
-        med = myers_fn(cfg)(win_planes, peq_b, pad_b, m, ncols)
+        med = verify.myers(win_planes, peq_b, pad_b, m, ncols)
         score = jnp.where(ham <= e, ham, med)
     else:
         score = ham
@@ -259,36 +252,13 @@ def candidate_grids(dix: DeviceIndex, cfg: AlignerConfig, reads, lengths,
 
 
 def _blocks_select(frames, f):
-    """blocks[f] per lane as a static where-chain (frame blocks are static;
-    even a 4-entry table gather costs ~1 ms per call on TPU)."""
+    """blocks[f] per lane as a static where-chain (frame blocks are static,
+    so no per-lane table gather is needed)."""
     vals = [b for _, b in frames]
     out = jnp.full(f.shape, vals[0], jnp.int32)
     for k in range(1, len(vals)):
         out = jnp.where(f == k, jnp.int32(vals[k]), out)
     return out
-
-
-def _shift_planes(planes, e: int, Wd: int):
-    """(..., Ww>=Wd+1) plane words starting at (anchor - e) -> the (..., Wd)
-    words starting at anchor, by an e-bit (< 32) right funnel shift.  Yields
-    exactly window_planes(anchor, Wd): oob/N marking is per-position."""
-    if e == 0:
-        return tuple(p[..., :Wd] for p in planes)
-    sh = U32(e)
-    ish = U32(32 - e)
-    return tuple((p[..., :Wd] >> sh) | (p[..., 1:Wd + 1] << ish)
-                 for p in planes)
-
-
-def _peq_from_planes(d0, d1, dn, pad):
-    """verify.build_peq computed from already-packed read planes (so the
-    compact path gathers 3 plane words per lane instead of a 4xWd table)."""
-    is_a = ~d0 & ~d1 & ~dn
-    is_c = d0 & ~d1 & ~dn
-    is_g = ~d0 & d1 & ~dn
-    is_t = d0 & d1 & ~dn
-    return jnp.stack([is_a | pad, is_c | is_t | pad, is_g | pad, is_t | pad],
-                     axis=-2)
 
 
 def _chunked_lanes(nchunks: int, n_used, outs_init, args, fn):
@@ -442,40 +412,26 @@ def candidate_grids_compact(dix: DeviceIndex, cfg: AlignerConfig, reads,
     cand = jnp.where(keep, anchS, 0)
 
     planes3 = jnp.stack(verify.pack_codes(frame_reads), axis=2)  # B,F,3,Wd
-    # gather flat (CAP, 3*Wd) rows, not (CAP, 3, Wd): TPU tiling pads the
-    # trailing (3, Wd=3) dims to (4, 128) -- a 57x expansion that costs
-    # 4 GB of HBM temp at b=16k on the 3 Gbp index (measured OOM, round 5).
-    # The flat row pads 9->128 (4x less); values are bit-identical.
+    # one flat (CAP, 3*Wd) row gather fetches all three planes of a read
     rp = planes3.reshape(R, 3 * Wd)[rowC]                         # CAP,3*Wd
     d0, d1, dn = rp[:, :Wd], rp[:, Wd:2 * Wd], rp[:, 2 * Wd:]
     lenmask = verify.length_mask(lenS, m)                        # CAP,Wd
-    padv = ~lenmask
+    fused_verify = verify_impl(cfg).fused_verify
 
-    def _verify_lanes(blk_, cand_, d0_, d1_, dn_, lm_, pv_):
+    def _verify_lanes(blk_, cand_, d0_, d1_, dn_, lm_):
         if cfg.indels and e > 0:
             ncols = m + 2 * e
             Ww = -(-ncols // 32)                                  # == Wd + 1
             wide = verify.window_planes(dix.g_planes, blk_, cand_ - U32(e),
                                         Ww, L, dix.idx_axis, dix.g_words)
-            if cfg.use_pallas and jax.default_backend() == "tpu":
-                # ONE fused kernel: funnel shift + popcount-over-XOR Hamming
-                # + in-register PEQ + Myers + select (BASELINE C11/C12
-                # mandate); bit-identical to the jnp sequence below (tested
-                # by the crossdiff harness: compact-fused vs dense-unfused)
-                from bitmapperbs_tpu.ops.pallas_kernels import \
-                    verify_fused_pallas
-                return (verify_fused_pallas(wide, (d0_, d1_, dn_), lm_,
-                                            m, ncols, e),)
-            ham = verify.hamming(_shift_planes(wide, e, Wd), (d0_, d1_, dn_),
-                                 lm_)
-            peq = _peq_from_planes(d0_, d1_, dn_, pv_)
-            med = myers_fn(cfg)(wide, peq, pv_, m, ncols)
-            return (jnp.where(ham <= e, ham, med),)
+            # funnel shift + Hamming filter + Myers + select in one pass
+            # (a GPU kernel on the GPU; bit-identical to the dense path)
+            return (fused_verify(wide, (d0_, d1_, dn_), lm_, m, ncols, e),)
         ref = verify.window_planes(dix.g_planes, blk_, cand_, Wd, L,
                                    dix.idx_axis, dix.g_words)
         return (verify.hamming(ref, (d0_, d1_, dn_), lm_),)
 
-    v_args = (blkS, cand, d0, d1, dn, lenmask, padv)
+    v_args = (blkS, cand, d0, d1, dn, lenmask)
     if chunks > 1:
         # valid (sorted-front) lanes only; skipped lanes keep INF and are
         # masked by `keep` below anyway

@@ -1,9 +1,9 @@
 """Batched host finalization: vectorized traceback-free SAM field
 construction for ungapped alignments (SURVEY.md C13/C18 at device speed).
 
-oracle/pipeline.finalize_hit is the per-read spec; at ~100k mapped reads/s
-its per-read Python DP + per-character MD/XM loops are ~1000x too slow
-(measured 116 reads/s end-to-end).  The frozen spec emits the UNGAPPED
+oracle/pipeline.finalize_hit is the per-read spec; at device mapping rates
+its per-read Python DP + per-character MD/XM loops are far too slow
+(116 reads/s end-to-end on one host core).  The frozen spec emits the UNGAPPED
 alignment whenever it achieves the reported score -- true for every read
 scored by the Hamming fast path, i.e. all but the rare indel reads -- so
 this module computes those records with batched numpy (window gathers,
@@ -100,8 +100,8 @@ def finalize_batch_device(idx: BSIndex, rc_ref: np.ndarray,
                           cfg: AlignerConfig, arr, lengths, quals, qnames,
                           out_np, flag_extras=None, mapq_overrides=None):
     """finalize_batch fed straight from the device output dict -- no
-    per-read Hit objects (they cost ~10us/read at 100k+ reads/s; profiled
-    as a top-3 host cost).  Semantics identical to
+    per-read Hit objects (~10 us/read of host time; profiled as a top-3
+    host cost).  Semantics identical to
     device_results_to_hits + finalize_batch (models/pool.py keeps that
     pair as the spec; tests assert record equality)."""
     n = len(qnames)

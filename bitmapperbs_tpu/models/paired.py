@@ -24,6 +24,7 @@ from bitmapperbs_tpu.models.aligner import (INF, INVALID, U32,
                                             candidate_stage, select_se)
 from bitmapperbs_tpu.oracle.pipeline import se_frames
 from bitmapperbs_tpu.ops import verify
+from bitmapperbs_tpu.ops.kernels import verify_impl
 
 # bp code -> is-reverse (bp = block*2 + pat; see constants.IS_REVERSE)
 _REV_BY_BP = [K.IS_REVERSE[(bp >> 1, bp & 1)] for bp in range(4)]
@@ -211,12 +212,8 @@ def map_batch_pe_device(dix: DeviceIndex, cfg: AlignerConfig,
         win = verify.window_planes(
             dix.g_planes, block, win_start, Ww, L, dix.idx_axis,
             dix.g_words)
-        if cfg.use_pallas and jax.default_backend() == "tpu":
-            from bitmapperbs_tpu.ops.pallas_kernels import myers_scan_pallas
-            scan_fn = myers_scan_pallas
-        else:
-            scan_fn = verify.myers_scan
-        S = scan_fn(win, ms_peq, ms_pad, m, ncols)         # B, ncols
+        S = verify_impl(cfg).rescue_scan(win, ms_peq, ms_pad, m,
+                                         ncols)            # B, ncols
         # real frame anchor of column j: A_raw = a_lo + (j - (e + m - 1));
         # valid iff j >= e+m-1 and j - (e+m-1) <= span (wrap-free in u32)
         j = jnp.arange(ncols, dtype=jnp.int32)

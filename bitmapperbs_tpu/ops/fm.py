@@ -1,6 +1,6 @@
 """Device FM-index lane ops: occ/rank, backward search, bounded-LF locate.
 
-TPU restatement of SURVEY.md C7-C10: every op is elementwise over an
+Device restatement of SURVEY.md C7-C10: every op is elementwise over an
 arbitrary lane shape; each lane carries (block, position) and the occ query
 is one row gather from the stacked checkpoint table followed by
 population_count -- no data-dependent control flow, so everything jits and
@@ -39,7 +39,7 @@ def fetch_cp_rows(dix: DeviceIndex, row, width: int | None = None):
 
     width: only the first `width` u32 of each row are fetched (XLA narrows
     the gather's slice size) -- occ/backward search needs the 12 count+plane
-    words, not the SA-mark tail, and TPU gather cost grows with row width.
+    words, not the SA-mark tail.
 
     Replicated index: plain gather.  Sharded index (dix.idx_axis set): each
     device gathers its local range and the partial rows are psum-merged over
@@ -70,7 +70,7 @@ def fetch_sa_samples(dix: DeviceIndex, flat_idx):
 
 
 def block_n(dix: DeviceIndex, block):
-    """dix.n[block] via a 2-way select (tiny-table gathers cost ~1 ms/call)."""
+    """dix.n[block] via a 2-way select (no per-lane table gather)."""
     return jnp.where(block == 0, dix.n[0], dix.n[1])
 
 
@@ -78,9 +78,6 @@ def occ(dix: DeviceIndex, block, c, i):
     """# occurrences of symbol c in BWT_block[0:i). Lanes of (block, c, i)."""
     row = (i // K.CP_BLOCK).astype(jnp.int32) + block.astype(jnp.int32) * dix.rows_max
     within = i % K.CP_BLOCK
-    # NOTE: fetching full rows is deliberate -- a width-narrowed gather
-    # (rows[..., :12]) lowers to a pathologically slow XLA gather on TPU
-    # (measured 40x slower than the full-row gather; see PERF.md).
     rows = fetch_cp_rows(dix, row)
     base = _select_word(rows[..., :_A], c.astype(jnp.int32))
     p0 = rows[..., _A:_A + _W]
@@ -93,7 +90,7 @@ def occ(dix: DeviceIndex, block, c, i):
 
 def _cbase(dix: DeviceIndex, block, c):
     """cbase[block, c] per lane via an 8-way where-chain over the scalar
-    table (a per-lane gather, however tiny the table, costs ~1 ms/step)."""
+    table (no per-lane gather of a tiny table)."""
     code = block.astype(jnp.int32) * _A + c.astype(jnp.int32)
     flat = dix.cbase.reshape(-1)
     out = jnp.broadcast_to(flat[0], code.shape)
@@ -105,9 +102,8 @@ def _cbase(dix: DeviceIndex, block, c):
 def extend_backward(dix: DeviceIndex, block, sp, ep, c):
     """One backward-search step per lane; empty intervals stay empty.
 
-    The sp and ep occ lookups are stacked into ONE gather (2N rows): TPU
-    gather cost has a large per-op fixed component, so one wide gather beats
-    two narrow ones (scripts/microbench3.py).
+    The sp and ep occ lookups are stacked into ONE gather (2N rows): one
+    wide gather instead of two narrow ones.
     """
     cb = _cbase(dix, block, c)
     both = occ(dix, jnp.stack([block, block]), jnp.stack([c, c]),
@@ -141,7 +137,7 @@ def _mark_rank(dix: DeviceIndex, block, i):
 
 def _select_word(words, w):
     """words[..., k] selected by per-lane w via a where-chain
-    (take_along_axis lowers to a slow per-element gather on TPU)."""
+    (instead of a per-element take_along_axis gather)."""
     out = words[..., 0]
     for k in range(1, words.shape[-1]):
         out = jnp.where(w == k, words[..., k], out)
@@ -153,8 +149,7 @@ def locate(dix: DeviceIndex, block, i, valid):
     (SURVEY.md hard-part 1: the walk is a fixed unroll with done-masking).
 
     Each step is ONE gather of the combined checkpoint row (occ counts,
-    BWT planes, and SA-mark bits share a row precisely so this works; TPU
-    gather cost is per-row).  The SA-sample lookup happens once after the
+    BWT planes, and SA-mark bits share a row precisely so this works).  The SA-sample lookup happens once after the
     loop.  Invalid lanes walk garbage safely.  Returns uint32 positions.
     """
     blk = block.astype(jnp.int32)

@@ -8,8 +8,9 @@ The semi-global band is realized by the window itself: the read aligns
 end-to-end against a window [anchor-e, anchor+m+e), free start/end -- this
 matches oracle/align.py's edit_matrix exactly.
 
-Everything is elementwise over an arbitrary lane shape and jits cleanly;
-ops/pallas_kernels.py provides fused TPU kernels with these as fallback.
+Everything is elementwise over an arbitrary lane shape and jits cleanly.
+These functions are the spec: ops/kernels.py holds the GPU kernels that
+replace `fused_verify` and `myers_scan` on the hot path, bit-identical.
 """
 from __future__ import annotations
 
@@ -64,7 +65,7 @@ def window_planes(g_planes, orient, start, nwords: int, genome_len: int,
 
     g_planes: uint32[2 * W, 3] FLAT rows (block-0 words then block-1 words;
     [b0, b1, nmask] interleaved so one 12-byte ROW gather fetches all three
-    planes of a word -- TPU gather cost is per row).  The flat layout
+    planes of a word).  The flat layout
     keeps the in-jit view reshape-free (layout fixed at upload; measured
     equal temp memory, but no reliance on XLA folding the reshape) and
     makes the sharded row math uniform.  A legacy (2, W, 3) input is
@@ -141,6 +142,46 @@ def hamming(ref_planes, read_planes, lenmask):
     match = (eq | (ref_c & read_t)) & ~rn & ~dn
     mism = ~match & lenmask
     return jax.lax.population_count(mism).sum(axis=-1, dtype=jnp.int32)
+
+
+def shift_planes(planes, e: int, Wd: int):
+    """(..., Ww>=Wd+1) plane words starting at (anchor - e) -> the (..., Wd)
+    words starting at anchor, by an e-bit (< 32) right funnel shift.  Yields
+    exactly window_planes(anchor, Wd): oob/N marking is per-position."""
+    if e == 0:
+        return tuple(p[..., :Wd] for p in planes)
+    sh = U32(e)
+    ish = U32(32 - e)
+    return tuple((p[..., :Wd] >> sh) | (p[..., 1:Wd + 1] << ish)
+                 for p in planes)
+
+
+def peq_from_planes(d0, d1, dn, pad):
+    """build_peq computed from already-packed read planes (so the compact
+    path gathers 3 plane words per lane instead of a 4xWd table)."""
+    is_a = ~d0 & ~d1 & ~dn
+    is_c = d0 & ~d1 & ~dn
+    is_g = ~d0 & d1 & ~dn
+    is_t = d0 & d1 & ~dn
+    return jnp.stack([is_a | pad, is_c | is_t | pad, is_g | pad, is_t | pad],
+                     axis=-2)
+
+
+def fused_verify(wide, read_planes, lenmask, m: int, ncols: int, e: int):
+    """Candidate verification of the compact path, per lane: the anchored
+    asymmetric Hamming distance where it is <= e, else the semi-global
+    Myers distance over the wide window.
+
+    wide: (b0, b1, nmask) uint32[..., Ww] starting at anchor - e;
+    read_planes: (b0, b1, nmask) uint32[..., Wd]; lenmask uint32[..., Wd].
+    Returns int32 lanes.  ops/kernels.verify_fused_kernel is bit-identical.
+    """
+    Wd = m // 32
+    ham = hamming(shift_planes(wide, e, Wd), read_planes, lenmask)
+    pad = ~lenmask
+    peq = peq_from_planes(*read_planes, pad)
+    med = myers(wide, peq, pad, m, ncols)
+    return jnp.where(ham <= e, ham, med)
 
 
 def build_peq(frame_reads, lengths, m: int):

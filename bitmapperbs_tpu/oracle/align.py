@@ -65,7 +65,7 @@ def edit_matrix(window: np.ndarray, read: np.ndarray) -> np.ndarray:
     t[k] - k -- bit-identical to the naive three-way recurrence (pinned by
     tests/test_oracle_pipeline.py::test_edit_matrix_matches_naive), ~100x
     faster, which is what makes >=500-read oracle differentials at 3 Gbp
-    tractable (VERDICT r3 #7)."""
+    tractable."""
     m, w = len(read), len(window)
     match = asym_match(window[None, :], read[:, None])  # [m, w]
     D = np.zeros((m + 1, w + 1), dtype=np.int32)

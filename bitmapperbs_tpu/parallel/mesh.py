@@ -1,7 +1,7 @@
 """Device mesh + sharding helpers (SURVEY.md section 2.2 / 3.5).
 
 The primary parallel axis is 'data': FASTQ read batches are sharded over
-chips; the index is replicated (it fits in one chip's HBM for GRCh38) or,
+devices; the index is replicated (GRCh38's fits one device) or,
 in sharded-index mode, split over an 'idx' axis with collective merges.
 """
 from __future__ import annotations

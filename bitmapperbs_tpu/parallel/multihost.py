@@ -1,13 +1,13 @@
 """Multi-host (DCN) driver: sharded FASTQ in, sharded SAM out, global stats.
 
-SURVEY.md section 2.2 / 5.8: the reference is single-node pthreads; the TPU
-framework scales over hosts with `jax.distributed` for control plane, ICI
-collectives inside the pjit'd mapper (parallel/shard.py), and DCN only for
-host-level input sharding and end-of-run statistics.
+SURVEY.md section 2.2 / 5.8: the reference is single-node pthreads; this
+package scales over hosts with `jax.distributed` for the control plane,
+device collectives inside the shard_map'd mapper (parallel/shard.py), and
+the host network only for input sharding and end-of-run statistics.
 
 Topology: every host runs this same driver.  Host h of H reads FASTQ records
 h, h+H, h+2H, ... (record-strided sharding needs no index pass and balances
-read-length skew), maps them on its local chips through the shard_map
+read-length skew), maps them on its local devices through the shard_map
 pipeline over the GLOBAL mesh, and writes `<out>.shard<h>.sam`.  Shards
 concatenate to a complete record set (order differs from input; each record
 is independent and tagged by qname).  End-of-run counters are summed over
@@ -37,8 +37,8 @@ def init_distributed(coordinator: str | None = None,
     """jax.distributed.initialize wrapper; returns (process_id, num_processes).
 
     With no arguments on a single host this is a no-op returning (0, 1).
-    On a pod slice, pass the coordinator address (or rely on the TPU
-    environment's auto-detection) before any other JAX call.  A host that
+    On a cluster, pass the coordinator address (host:port), the process
+    count and this process's id before any other JAX call.  A host that
     cannot reach the coordinator times out inside jax.distributed -- that
     timeout IS the missing-host detection of SURVEY.md 5.3; the run then
     restarts from each host's output cursor.

@@ -1,11 +1,11 @@
 """shard_map pipelines over a device mesh (SURVEY.md 2.2 / 3.5, config 5).
 
 Two modes:
-- replicated index (default): mesh ('data',), reads sharded over chips,
+- replicated index (default): mesh ('data',), reads sharded over devices,
   DeviceIndex replicated; zero collectives in the hot path.
 - sharded index: mesh ('data', 'idx'), DeviceIndex's big arrays sharded over
   'idx', reads sharded over 'data' and replicated over 'idx'; every index
-  fetch psum-merges shard-local partial rows over ICI (ops/fm.fetch_*).
+  fetch psum-merges shard-local partial rows over 'idx' (ops/fm.fetch_*).
 
 Both modes produce bitwise-identical results to the single-device pipeline
 (frozen order-free selection), which the mesh tests assert.
@@ -13,12 +13,10 @@ Both modes produce bitwise-identical results to the single-device pipeline
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 
 import jax
-import jax.numpy as jnp
 from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
@@ -26,66 +24,6 @@ from bitmapperbs_tpu.config import AlignerConfig
 from bitmapperbs_tpu.index.build import BSIndex
 from bitmapperbs_tpu.index.device import DeviceIndex, upload_index
 from bitmapperbs_tpu.models.aligner import map_batch_device
-
-
-def _pad_to(x, mult, axis=0):
-    n = x.shape[axis]
-    pad = -n % mult
-    if pad == 0:
-        return x
-    widths = [(0, 0)] * x.ndim
-    widths[axis] = (0, pad)
-    return np.pad(x, widths)
-
-
-def upload_index_sharded(idx: BSIndex, mesh: Mesh,
-                         idx_axis: str = "idx") -> DeviceIndex:
-    """Upload with cp_rows / sa_samples / g_planes sharded over `idx_axis`.
-
-    Pads each sharded axis to a multiple of the axis size so shards are
-    equal; global static sizes (rows_max, samples_max) keep describing the
-    UNPADDED layout plus padding, consistent with fetch_* address math.
-    """
-    ns = mesh.shape[idx_axis]
-    host = upload_index(idx)  # reuse packing; arrays still on default device
-
-    def per_block_pad(flat2, stride, new_stride):
-        """[2*stride, ...] -> [2*new_stride, ...], block stride preserved."""
-        arr = np.asarray(flat2)
-        out = np.zeros((2 * new_stride, *arr.shape[1:]), arr.dtype)
-        out[:stride] = arr[:stride]
-        out[new_stride:new_stride + stride] = arr[stride:2 * stride]
-        return out
-
-    rows_max = -(-host.rows_max // ns) * ns
-    cp = per_block_pad(host.cp_rows, host.rows_max, rows_max)
-    samples_max = -(-host.samples_max // ns) * ns
-    sa = per_block_pad(host.sa_samples, host.samples_max, samples_max)
-    # g_planes is flat (2 * g_words, 3); pad rows at the END to a multiple
-    # of the axis size (block offsets unchanged) and shard over rows
-    gp = _pad_to(np.asarray(host.g_planes), ns, axis=0)
-
-    cp_d = jax.device_put(jnp.asarray(cp),
-                          NamedSharding(mesh, P(idx_axis, None)))
-    sa_d = jax.device_put(jnp.asarray(sa), NamedSharding(mesh, P(idx_axis)))
-    gp_d = jax.device_put(jnp.asarray(gp),
-                          NamedSharding(mesh, P(idx_axis, None)))
-    rep = NamedSharding(mesh, P())
-    return DeviceIndex(
-        cp_rows=cp_d,
-        cbase=jax.device_put(host.cbase, rep),
-        sa_samples=sa_d,
-        n=jax.device_put(host.n, rep),
-        g_planes=gp_d,
-        klt=jax.device_put(host.klt, rep),  # small table: always replicated
-        rows_max=rows_max,
-        genome_len=host.genome_len,
-        samples_max=samples_max,
-        sa_rate=host.sa_rate,
-        klt_k=host.klt_k,
-        g_words=host.g_words,
-        idx_axis=idx_axis,
-    )
 
 
 def _dix_specs(dix: DeviceIndex, idx_axis: str | None):
@@ -160,7 +98,7 @@ def make_sharded_pe_mapper(cfg: AlignerConfig, mesh: Mesh,
 
 @dataclasses.dataclass
 class CliMappers:
-    """Multi-chip mapping entry points for the CLI (SURVEY.md 3.5 / 7 P5).
+    """Multi-device mapping entry points for the CLI (SURVEY.md 3.5 / 7 P5).
 
     Wraps the shard_map mappers with input device_put so models/host.py can
     call them exactly like the single-device jits.  `se_dense`/`pe_dense`
@@ -180,12 +118,12 @@ class CliMappers:
 def make_cli_mappers(idx: BSIndex, cfg: AlignerConfig, devices=None,
                      shard_index: int = 0,
                      reuse: "CliMappers | None" = None) -> CliMappers:
-    """Build the production multi-chip mappers over the local devices.
+    """Build the production multi-device mappers over the local devices.
 
     devices: list of jax devices (default jax.local_devices()).
     shard_index: if > 0, shard the index arrays over an 'idx' axis of this
-    size (HBM relief for genomes larger than one chip's memory); the data
-    axis gets the remaining ndev // shard_index chips.  0 = replicated.
+    size (for indexes larger than one device's memory); the data axis gets
+    the remaining ndev // shard_index devices.  0 = replicated.
     reuse: an existing CliMappers whose mesh + uploaded index are reused
     (only the jitted mappers are rebuilt for the new cfg -- cli -e rate
     mode builds one mapper set per read-length budget without re-uploading
@@ -204,11 +142,11 @@ def make_cli_mappers(idx: BSIndex, cfg: AlignerConfig, devices=None,
             data = ndev // shard_index
             mesh = Mesh(np.array(devices).reshape(data, shard_index),
                         ("data", "idx"))
-            dix = upload_index_sharded(idx, mesh, "idx")
+            dix = upload_index(idx, mesh=mesh, idx_axis="idx")
         else:
             data = ndev
             mesh = Mesh(np.array(devices), ("data",))
-            dix = jax.device_put(upload_index(idx), NamedSharding(mesh, P()))
+            dix = upload_index(idx, mesh=mesh)
 
     out = CliMappers(mesh=mesh, dix=dix, batch_round=data)
     rd_s = NamedSharding(mesh, P("data", None))

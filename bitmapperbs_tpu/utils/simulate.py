@@ -311,11 +311,14 @@ def random_genome(rng, contigs=(2000, 1500), gc: float = 0.42) -> Genome:
     )
 
 
-def random_genome_fasta(rng, contigs=(2000, 1500), gc: float = 0.42) -> str:
-    """Random FASTA text for tests (vectorized; fine for 10^7+ bp)."""
+def random_genome_fasta(rng, contigs=(2000, 1500), gc: float = 0.42,
+                        names=None) -> str:
+    """Random FASTA text (vectorized; fine for 10^8 bp).  Contigs are named
+    chr1.. unless `names` are given."""
     p = np.array([(1 - gc) / 2, gc / 2, gc / 2, (1 - gc) / 2])
+    names = names or [f"chr{i + 1}" for i in range(len(contigs))]
     parts = []
-    for i, ln in enumerate(contigs):
+    for name, ln in zip(names, contigs):
         codes = rng.choice(4, size=ln, p=p).astype(np.uint8)
         chars = np.frombuffer(b"ACGT", dtype=np.uint8)[codes]
         width = 70
@@ -325,5 +328,5 @@ def random_genome_fasta(rng, contigs=(2000, 1500), gc: float = 0.42) -> str:
         flat = np.concatenate([chars, np.full(pad, ord("\n"), np.uint8)])
         rows[:, :width] = flat.reshape(nrows, width)
         body = rows.tobytes().decode().rstrip("\n")
-        parts.append(f">chr{i + 1}\n{body}\n")
+        parts.append(f">{name}\n{body}\n")
     return "".join(parts)

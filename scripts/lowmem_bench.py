@@ -1,5 +1,5 @@
 """Measure the lowmem (bwtinc dynamic-BWT) build mode at the scale it
-exists for (VERDICT r4 #7: the pSAscan role is byte-identity-tested at toy
+exists for (the pSAscan role is byte-identity-tested at toy
 scale only; its Gbp-scale wall time and peak RSS were never measured, so
 "bounded-RAM human-genome build" was a capability claim without numbers).
 
@@ -22,6 +22,8 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
+from bitmapperbs_tpu.utils.artifacts import artifacts_dir  # noqa: E402
+
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 
 _CHILD = r"""
@@ -31,8 +33,6 @@ repo, mode, out_prefix, n_bp = (sys.argv[1], sys.argv[2], sys.argv[3],
                                 int(sys.argv[4]))
 sys.path.insert(0, repo)
 sys.path.insert(0, os.path.join(repo, "scripts"))
-from build_big import register_builder_pid
-register_builder_pid()   # the heavy work is HERE, not in the parent
 from bitmapperbs_tpu.index.build import build_index, save_index
 from bitmapperbs_tpu.utils.simulate import random_genome
 
@@ -77,12 +77,9 @@ def compare(a: str, b: str) -> None:
 
 
 def main() -> None:
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from build_big import register_builder_pid
-    register_builder_pid()   # bench.py SIGSTOP hook
     stage = sys.argv[1] if len(sys.argv) > 1 else "100m"
     n_bp = {"100m": 100_000_000, "1g": 1_030_000_000}[stage]
-    d = "/tmp/lowmem_bench"
+    d = os.path.join(artifacts_dir(), "lowmem_bench")
     os.makedirs(d, exist_ok=True)
     for mode in ("lowmem", "sais"):
         prefix = os.path.join(d, f"{stage}_{mode}")

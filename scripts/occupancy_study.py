@@ -1,4 +1,4 @@
-"""Seed/candidate occupancy study on a cached index (VERDICT r3 item 4).
+"""Seed/candidate occupancy study on a cached index.
 
 Re-runs the round-3 PERF.md occupancy methodology (hardware-independent
 COUNTS via the oracle's frozen seeding, host CPU only) on any artifact --

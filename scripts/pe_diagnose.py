@@ -1,4 +1,4 @@
-"""Classify non-proper pairs at scale (VERDICT r3 item 6).
+"""Classify non-proper pairs at scale.
 
 At 3.08 Gbp the proper-pair rate (0.977) sits below SE recall (0.989).
 This script answers WHY, pair by pair, against simulated truth:
@@ -16,7 +16,7 @@ This script answers WHY, pair by pair, against simulated truth:
   3. the residue -- both mates alignable yet no proper pair -- is the real
      deficit, sub-classified by what the SE stage and rescue did.
 
-Run (TPU): python scripts/pe_diagnose.py [--cache PREFIX] [--n 4096]
+Run: python scripts/pe_diagnose.py [--cache PREFIX] [--n 4096]
 """
 from __future__ import annotations
 

@@ -1,9 +1,9 @@
-"""Stage breakdown of the end-to-end SE path (VERDICT r3 #5).
+"""Stage breakdown of the end-to-end SE path.
 
 Replicates bench.py's e2e workload (10 Mbp genome, 16k x 90 bp reads) and
-times every host stage of models/host.map_batch_tpu separately, then the
-stitched pipeline, so the 43.6k-vs-67k reads/s gap decomposes into named
-line items.
+times every host stage of models/host.map_reads separately, then the
+stitched pipeline, so the gap between the device rate and the end-to-end
+rate decomposes into named line items.
 
 Run: python scripts/profile_e2e.py [--batch 16384] [--iters 4]
 """
@@ -35,7 +35,7 @@ def main():
     from bitmapperbs_tpu.index.build import build_index
     from bitmapperbs_tpu.index.device import upload_index
     from bitmapperbs_tpu.models.aligner import map_batch_device
-    from bitmapperbs_tpu.models.host import (map_batch_tpu, prepare_batch)
+    from bitmapperbs_tpu.models.host import (map_reads, prepare_batch)
     from bitmapperbs_tpu.models import native_finalize
     from bitmapperbs_tpu.models.pool import _finalize_se_task_local
     from bitmapperbs_tpu.utils import dna
@@ -121,8 +121,8 @@ def main():
     read_lists = [mk_reads(30 + i) for i in range(it)]
     t0 = time.perf_counter()
     for rl in read_lists:
-        map_batch_tpu(idx, dix, cfg, rl, quals, qnames)
-    stage["e2e_map_batch_tpu"] = (time.perf_counter() - t0) / it
+        map_reads(idx, dix, cfg, rl, quals, qnames)
+    stage["e2e_map_reads"] = (time.perf_counter() - t0) / it
 
     # steady state: ONE call spanning several batches, so the in-flight
     # window (MAX_INFLIGHT) overlaps device compute with host finalize --
@@ -134,7 +134,7 @@ def main():
     quals_n = ["I" * len(r) for r in reads_n]
     qnames_n = [f"s{i}" for i in range(len(reads_n))]
     t0 = time.perf_counter()
-    map_batch_tpu(idx, dix, cfg, reads_n, quals_n, qnames_n)
+    map_reads(idx, dix, cfg, reads_n, quals_n, qnames_n)
     stage[f"e2e_steady_{nb}x"] = (time.perf_counter() - t0) / nb
 
     print(f"\n=== per-{batch}-read-batch stage times ===")

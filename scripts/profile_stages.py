@@ -121,7 +121,7 @@ def main():
         peq, pad = verify.build_peq(frame_reads, lengths[:, None], m)
         peq_b = jnp.broadcast_to(peq[:, :, None], (B, F, Kc, 4, Wd))
         pad_b = jnp.broadcast_to(pad[:, :, None], (B, F, Kc, Wd))
-        return aligner.myers_fn(cfg)(win_planes, peq_b, pad_b, m, ncols)
+        return verify.myers(win_planes, peq_b, pad_b, m, ncols)
 
     dt, _ = timed(myers_stage, cand)
     print(f"myers ({B*F*Kc} lanes)     {dt*1e3:8.1f} ms")

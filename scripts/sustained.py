@@ -19,7 +19,7 @@ import numpy as np
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--reads", type=int, default=2_000_000)
-    ap.add_argument("--index", default="/tmp/idx_100m")
+    ap.add_argument("--index", default="artifacts/idx_100m")
     ap.add_argument("--batch", type=int, default=8192)
     args = ap.parse_args()
 

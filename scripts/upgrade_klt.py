@@ -1,8 +1,7 @@
 """Upgrade an existing index artifact's k-mer table depth in place.
 
-Round-5 sweep (PERF.md): klt_k 16 is +3.2% reads/s/chip at 3 Gbp for
-689 MB HBM, and Gbp builds now default to it (constants.KLT_MAX_K_GBP).
-This rebuilds the KLT of an already-built artifact post-hoc (minutes; no
+Gbp builds default to klt_k 16 (constants.KLT_MAX_K_GBP; its throughput
+gain is not measured on the GPU).  This rebuilds the KLT of an already-built artifact post-hoc (minutes; no
 SA-IS) and atomically replaces the .bin/.json, so the at-scale caches get
 the new default without a 2 h rebuild.  Everything except the KLT (and
 the manifest's klt_k) is byte-unchanged; device outputs are bit-identical

@@ -97,3 +97,31 @@ def test_bgzf_eof_marker(rng):
     w.close()
     assert buf.getvalue().endswith(bytes.fromhex(
         "1f8b08040000000000ff0600424302001b0003000000000000000000"))
+
+
+def test_read_bam_records_roundtrip(tmp_path):
+    """read_bam_records gives back the header text and each record's exact
+    encoded bytes; bam_record_fields decodes qname/flag/ref/pos/mapq."""
+    from bitmapperbs_tpu.io.bam import (BamWriter, _encode_record,
+                                        bam_record_fields, read_bam_records)
+    from bitmapperbs_tpu.io.sam import SamRecord
+
+    recs = [SamRecord(qname=f"q{i}", flag=16 * (i % 2), rname="chr2",
+                      pos=10 + i, mapq=42, cigar="4M", rnext="*", pnext=0,
+                      tlen=0, seq="ACGT", qual="IIII", nm=0)
+            for i in range(3)]
+    recs.append(SamRecord(qname="u", flag=4, rname="*", pos=0, mapq=0,
+                          cigar="*", rnext="*", pnext=0, tlen=0, seq="ACGT",
+                          qual="IIII"))
+    path = tmp_path / "x.bam"
+    with open(path, "wb") as f:
+        w = BamWriter(f, ["chr1", "chr2"], [100, 200])
+        for r in recs:
+            w.write(r)
+        w.close()
+    text, got = read_bam_records(str(path))
+    assert "@SQ\tSN:chr2\tLN:200" in text
+    ids = {"chr1": 0, "chr2": 1}
+    assert got == [_encode_record(r, ids)[4:] for r in recs]
+    assert bam_record_fields(got[1]) == ("q1", 16, 1, 10, 42)
+    assert bam_record_fields(got[3])[:3] == ("u", 4, -1)

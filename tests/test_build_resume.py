@@ -1,5 +1,5 @@
 """Kill/resume coverage for the block-resumable at-scale builder
-(scripts/build_big.build_scale; SURVEY.md 5.4, VERDICT r4 #6).
+(scripts/build_big.build_scale; SURVEY.md 5.4).
 
 The round-4 wipe landed in the ~30 min window between "SA-IS done" and the
 first packed-block checkpoint, re-running the whole SA-IS.  build_scale now
@@ -108,7 +108,7 @@ def test_sa_checkpoint_survives_kill_before_pack(tmp_path):
 @pytest.mark.skipif(not os.environ.get("RUN_BIG"),
                     reason="100 Mbp variant (~4 min); set RUN_BIG=1")
 def test_sa_checkpoint_kill_resume_100m(tmp_path):
-    """VERDICT r4 #6 asked for the kill/resume proof at 100 Mbp scale."""
+    """The kill/resume proof at 100 Mbp scale."""
     child = _CHILD.replace("contigs=(300_000, 200_000)",
                            "contigs=(50_000_000, 50_000_000)")
 

@@ -1,11 +1,14 @@
 """CLI surface tests (index + search round trip, cursor resume)."""
+import importlib
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
 
 from bitmapperbs_tpu.cli import main
+from bitmapperbs_tpu.config import AlignerConfig
 from bitmapperbs_tpu.index.build import parse_fasta
 from bitmapperbs_tpu.io.fastq import write_fastq
 from bitmapperbs_tpu.utils.simulate import random_genome_fasta, simulate_reads
@@ -37,6 +40,10 @@ def test_index_and_search_se(workdir, capsys):
     assert len(body) == 30
     stats = json.loads((d / "s.json").read_text())
     assert stats["mapped"] >= 28
+    # the resolved config rides along and rebuilds a hashable config
+    cfg = AlignerConfig.from_dict(stats["config"])
+    assert (cfg.read_len_bucket, cfg.batch_size) == (96, 30)
+    assert hash(cfg) == hash(cfg.replace())
     assert not os.path.exists(str(out) + ".cursor")
 
 
@@ -363,3 +370,66 @@ def test_gbp_preset_remap():
         argparse.Namespace(fast=True), 100_000_000)
     assert (cfg.max_seed_occ, cfg.locate_budget, cfg.max_candidates) == \
         (32, 64, 16)
+
+
+def test_platform_gpu_fails_without_gpu(workdir, capsys):
+    """--platform gpu on a machine (here: a process) without a GPU backend
+    exits 2 instead of mapping on the CPU."""
+    import jax
+
+    d, _ = workdir
+    main(["index", str(d / "ref.fa")])
+    try:
+        assert main(["search", str(d / "ref.fa"), "--seq",
+                     str(d / "reads.fq"), "-o", str(d / "gpu.sam"),
+                     "--platform", "gpu"]) == 2
+    finally:
+        jax.config.update("jax_platforms", "cpu")
+    assert "--platform gpu" in capsys.readouterr().err
+    assert not (d / "gpu.sam").exists()
+
+
+@pytest.mark.parametrize("script", ["bench", "chip_smoke"])
+def test_gpu_scripts_exit_2_without_gpu(script, monkeypatch, capsys):
+    """bench.py and chip_smoke.py report nothing from a CPU: they exit 2
+    before any set-up and print no result line."""
+    mod = importlib.import_module(script)
+    monkeypatch.setattr(sys, "argv", [script + ".py"])
+    assert mod.main() == 2
+    out = capsys.readouterr()
+    assert '"ok"' not in out.out and '"metric"' not in out.out
+    assert "not gpu" in out.err
+
+
+def test_compile_cache_env_wins(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, JAX reads it itself: the helper
+    sets no other directory."""
+    import jax
+
+    from bitmapperbs_tpu.utils.artifacts import enable_compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "cc"))
+    assert enable_compile_cache() == str(tmp_path / "cc")
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_default_is_checkout_artifacts(monkeypatch):
+    """Without the variable the cache goes to <checkout>/artifacts/jaxcache,
+    a fixed path computed from the package location."""
+    import jax
+
+    import bitmapperbs_tpu
+    from bitmapperbs_tpu.utils.artifacts import enable_compile_cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    monkeypatch.setenv("BTBS_ARTIFACTS", "/nonexistent-elsewhere")
+    want = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(bitmapperbs_tpu.__file__))), "artifacts", "jaxcache")
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        assert enable_compile_cache() == want
+        assert jax.config.jax_compilation_cache_dir == want
+        assert os.path.isdir(want)
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

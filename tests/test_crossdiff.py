@@ -1,6 +1,6 @@
 """CI smoke for the large-scale differential harness (scripts/crossdiff.py).
 
-The full harness runs 10^5 reads at 100 Mbp on the TPU in minutes; here it
+The full harness runs 10^5 reads at 100 Mbp on the GPU; here it
 runs a miniature corpus on CPU so the three layers (compact-vs-dense,
 batch-split invariance, oracle SAM sampling) stay wired and green.
 """

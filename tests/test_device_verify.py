@@ -166,85 +166,3 @@ def test_myers_scan_matches_oracle_columns(rng):
                 jr = j - npad
                 if 0 <= jr < wlen:
                     assert S[i, j] == D[L, jr + 1], (i, j)
-
-
-@pytest.mark.skipif(not __import__("os").environ.get("BTBS_INTERPRET_TESTS"),
-                    reason="pallas interpret mode is minutes-slow on this "
-                           "CPU; the fused kernel is validated on TPU by "
-                           "scripts/crossdiff.py and scripts/fused bench")
-def test_fused_verify_matches_jnp_sequence(rng):
-    """verify_fused_pallas (interpret mode) == the jnp hamming/peq/myers
-    sequence it replaces in the compact path (models/aligner.py)."""
-    import jax.numpy as jnp
-
-    from bitmapperbs_tpu.models.aligner import (_peq_from_planes,
-                                                _shift_planes)
-    from bitmapperbs_tpu.ops.pallas_kernels import verify_fused_pallas
-
-    m, e, B = 96, 4, 64
-    ncols = m + 2 * e
-    Ww = -(-ncols // 32) + (1 if ncols % 32 == 0 else 0)
-    Ww = max(Ww, m // 32 + 1)
-    Wd = m // 32
-    win_codes = rng.integers(0, 5, size=(B, Ww * 32)).astype(np.uint8)
-    read_codes = rng.integers(0, 5, size=(B, m)).astype(np.uint8)
-    lengths = rng.integers(40, m + 1, size=B).astype(np.int32)
-    # pad rows beyond length to N (as prepare_batch does)
-    for i in range(B):
-        read_codes[i, lengths[i]:] = 4
-
-    wide = verify.pack_codes(jnp.asarray(win_codes))
-    d0, d1, dn = verify.pack_codes(jnp.asarray(read_codes))
-    lenmask = verify.length_mask(jnp.asarray(lengths), m)
-    padv = ~lenmask
-
-    ham = verify.hamming(_shift_planes(wide, e, Wd), (d0, d1, dn), lenmask)
-    peq = _peq_from_planes(d0, d1, dn, padv)
-    med = verify.myers(wide, peq, padv, m, ncols)
-    want = np.asarray(jnp.where(ham <= e, ham, med))
-
-    got = np.asarray(verify_fused_pallas(wide, (d0, d1, dn), lenmask,
-                                         m, ncols, e, interpret=True))
-    np.testing.assert_array_equal(got, want)
-
-    # e = 0 flavor (no funnel shift)
-    ham0 = verify.hamming(_shift_planes(wide, 0, Wd), (d0, d1, dn), lenmask)
-    med0 = verify.myers(wide, peq, padv, m, m)
-    want0 = np.asarray(jnp.where(ham0 <= 0, ham0, med0))
-    got0 = np.asarray(verify_fused_pallas(wide, (d0, d1, dn), lenmask,
-                                          m, m, 0, interpret=True))
-    np.testing.assert_array_equal(got0, want0)
-
-
-def test_fused_verify_small_interpret(rng):
-    """Ungated small-shape interpret-mode parity for verify_fused_pallas:
-    CPU CI executes the production kernel logic on every run (the full-size
-    case above is env-gated because interpret mode is minutes-slow).  Same
-    jnp-sequence spec, m=32, 8 lanes, e in {0, 2}."""
-    import jax.numpy as jnp
-
-    from bitmapperbs_tpu.models.aligner import _peq_from_planes, _shift_planes
-    from bitmapperbs_tpu.ops.pallas_kernels import verify_fused_pallas
-
-    m, B = 32, 8
-    Wd = m // 32
-    for e in (2, 0):
-        ncols = m + 2 * e
-        Ww = max(-(-ncols // 32), Wd + 1)
-        win_codes = rng.integers(0, 5, size=(B, Ww * 32)).astype(np.uint8)
-        read_codes = rng.integers(0, 5, size=(B, m)).astype(np.uint8)
-        lengths = rng.integers(m // 2, m + 1, size=B).astype(np.int32)
-        for i in range(B):
-            read_codes[i, lengths[i]:] = 4
-        wide = verify.pack_codes(jnp.asarray(win_codes))
-        d0, d1, dn = verify.pack_codes(jnp.asarray(read_codes))
-        lenmask = verify.length_mask(jnp.asarray(lengths), m)
-        padv = ~lenmask
-        ham = verify.hamming(_shift_planes(wide, e, Wd), (d0, d1, dn),
-                             lenmask)
-        peq = _peq_from_planes(d0, d1, dn, padv)
-        med = verify.myers(wide, peq, padv, m, ncols)
-        want = np.asarray(jnp.where(ham <= e, ham, med))
-        got = np.asarray(verify_fused_pallas(wide, (d0, d1, dn), lenmask,
-                                             m, ncols, e, interpret=True))
-        np.testing.assert_array_equal(got, want, err_msg=f"e={e}")

@@ -6,8 +6,8 @@ import pytest
 from bitmapperbs_tpu.config import AlignerConfig
 from bitmapperbs_tpu.index.build import build_index
 from bitmapperbs_tpu.index.device import upload_index
-from bitmapperbs_tpu.models.host import (make_finalize_pool, map_batch_pe_tpu,
-                                         map_batch_tpu)
+from bitmapperbs_tpu.models.host import (make_finalize_pool, map_pairs,
+                                         map_reads)
 from bitmapperbs_tpu.utils.simulate import (random_genome_fasta,
                                             simulate_pairs, simulate_reads)
 
@@ -28,8 +28,8 @@ def test_pool_matches_inprocess(setup):
         sims = simulate_reads(idx.genome, 50, read_len=60, seed=7,
                               sub_rate=0.02, indel_rate=0.01)
         reads = [s.codes for s in sims]
-        a = [r.line() for r in map_batch_tpu(idx, dix, cfg, reads)]
-        b = [r.line() for r in map_batch_tpu(idx, dix, cfg, reads, pool=pool)]
+        a = [r.line() for r in map_reads(idx, dix, cfg, reads)]
+        b = [r.line() for r in map_reads(idx, dix, cfg, reads, pool=pool)]
         assert a == b
 
         pe_cfg = cfg.replace(paired=True, min_insert=100, max_insert=400)
@@ -38,8 +38,8 @@ def test_pool_matches_inprocess(setup):
         inp = [(p[0].codes, p[1].codes) for p in prs]
         pool2 = make_finalize_pool(idx, pe_cfg, 2)
         try:
-            a = [r.line() for r in map_batch_pe_tpu(idx, dix, pe_cfg, inp)]
-            b = [r.line() for r in map_batch_pe_tpu(idx, dix, pe_cfg, inp,
+            a = [r.line() for r in map_pairs(idx, dix, pe_cfg, inp)]
+            b = [r.line() for r in map_pairs(idx, dix, pe_cfg, inp,
                                                     pool=pool2)]
             assert a == b
         finally:

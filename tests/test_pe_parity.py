@@ -5,7 +5,7 @@ import pytest
 from bitmapperbs_tpu.config import AlignerConfig
 from bitmapperbs_tpu.index.build import build_index
 from bitmapperbs_tpu.index.device import upload_index
-from bitmapperbs_tpu.models.host import map_batch_pe_tpu
+from bitmapperbs_tpu.models.host import map_pairs
 from bitmapperbs_tpu.oracle.paired import map_batch_pe
 from bitmapperbs_tpu.utils.simulate import random_genome_fasta, simulate_pairs
 
@@ -20,7 +20,7 @@ def setup():
 def _compare(idx, dix, cfg, pairs):
     inp = [(a.codes, b.codes) for a, b in pairs]
     oracle = [r.line() for r in map_batch_pe(idx, cfg, inp)]
-    device = [r.line() for r in map_batch_pe_tpu(idx, dix, cfg, inp)]
+    device = [r.line() for r in map_pairs(idx, dix, cfg, inp)]
     mism = [i for i, (a, b) in enumerate(zip(oracle, device)) if a != b]
     assert not mism, (
         f"{len(mism)} of {len(oracle)} mismatch, first at {mism[0]}:"
@@ -63,7 +63,7 @@ def test_pe_parity_rescue_path(setup):
     cfg = cfg_pe(max_errors=3)
     orecs = map_batch_pe(idx, cfg, inp)
     oracle = [r.line() for r in orecs]
-    device = [r.line() for r in map_batch_pe_tpu(idx, dix, cfg, inp)]
+    device = [r.line() for r in map_pairs(idx, dix, cfg, inp)]
     assert oracle == device
     n_proper = sum(bool(r.flag & 0x2) for r in orecs)
     assert n_proper >= 40  # most pairs recovered via rescue
@@ -94,7 +94,7 @@ def test_pe_rescue_window_underflow(setup):
     cfg = cfg_pe(max_errors=3, indels=True, min_insert=200, max_insert=400)
     recs_o = map_batch_pe(idx, cfg, inp)
     oracle = [r.line() for r in recs_o]
-    device = [r.line() for r in map_batch_pe_tpu(idx, dix, cfg, inp)]
+    device = [r.line() for r in map_pairs(idx, dix, cfg, inp)]
     assert oracle == device
     assert not any(r.flag & 0x2 for r in recs_o)  # no (spurious) proper pair
 
@@ -104,7 +104,7 @@ def test_pe_rescue_window_underflow(setup):
     cfg2 = cfg_pe(max_errors=3, indels=True, min_insert=0, max_insert=60)
     recs_o2 = map_batch_pe(idx, cfg2, inp2)
     oracle2 = [r.line() for r in recs_o2]
-    device2 = [r.line() for r in map_batch_pe_tpu(idx, dix, cfg2, inp2)]
+    device2 = [r.line() for r in map_pairs(idx, dix, cfg2, inp2)]
     assert oracle2 == device2
     assert not any(r.flag & 0x2 for r in recs_o2)
 

@@ -6,7 +6,7 @@ import pytest
 from bitmapperbs_tpu.config import AlignerConfig
 from bitmapperbs_tpu.index.build import build_index
 from bitmapperbs_tpu.index.device import upload_index
-from bitmapperbs_tpu.models.host import map_batch_tpu
+from bitmapperbs_tpu.models.host import map_reads
 from bitmapperbs_tpu.oracle.pipeline import map_batch_se
 from bitmapperbs_tpu.utils.simulate import random_genome_fasta, simulate_reads
 
@@ -22,7 +22,7 @@ def _compare(idx, dix, cfg, sims):
     reads = [s.codes for s in sims]
     quals = [s.qual for s in sims]
     oracle = [r.line() for r in map_batch_se(idx, cfg, reads, quals)]
-    device = [r.line() for r in map_batch_tpu(idx, dix, cfg, reads, quals)]
+    device = [r.line() for r in map_reads(idx, dix, cfg, reads, quals)]
     mism = [i for i, (a, b) in enumerate(zip(oracle, device)) if a != b]
     assert not mism, (
         f"{len(mism)} mismatching records, first: "
@@ -67,7 +67,7 @@ def test_variable_length_bucket_parity(setup):
                         batch_size=50)
     reads = [s.codes for s in sims]
     oracle = [r.line() for r in map_batch_se(idx, cfg, reads)]
-    device = [r.line() for r in map_batch_tpu(idx, dix, cfg, reads)]
+    device = [r.line() for r in map_reads(idx, dix, cfg, reads)]
     assert oracle == device
 
 
@@ -127,7 +127,7 @@ def test_gdrop_fallback_sam_equal(setup):
     out = map_batch_device(dix, cfg, jnp.asarray(arr), jnp.asarray(lengths))
     assert np.asarray(out["gdrop"]).any()  # cap=1 must overflow somewhere
     oracle = [r.line() for r in map_batch_se(idx, cfg, reads)]
-    device = [r.line() for r in map_batch_tpu(idx, dix, cfg, reads)]
+    device = [r.line() for r in map_reads(idx, dix, cfg, reads)]
     assert oracle == device
 
 
@@ -135,7 +135,7 @@ def test_truncation_prefers_specific_seeds():
     """With a tiny locate budget and a junk (high-frequency) first seed,
     ascending-frequency expansion must still find the true locus."""
     import jax.numpy as jnp
-    from bitmapperbs_tpu.models.host import map_batch_tpu
+    from bitmapperbs_tpu.models.host import map_reads
 
     rng = np.random.default_rng(77)
     # genome: long T-homopolymer region (junk seeds) + unique sequence
@@ -149,7 +149,7 @@ def test_truncation_prefers_specific_seeds():
     read = np.where(frag == 1, 3, frag).astype(np.uint8)  # OT converted
     cfg = AlignerConfig(max_errors=3, indels=True, read_len_bucket=96,
                         batch_size=1, locate_budget=8, max_seed_occ=64)
-    recs = map_batch_tpu(idx, dix, cfg, [read])
+    recs = map_reads(idx, dix, cfg, [read])
     assert recs[0].pos == 581, recs[0].line()
     oracle = map_batch_se(idx, cfg, [read])
     assert recs[0].line() == oracle[0].line()

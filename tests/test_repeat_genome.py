@@ -1,4 +1,4 @@
-"""Repeat-structured genome (VERDICT r3 #4): the adaptive-seeding regime.
+"""Repeat-structured genome: the adaptive-seeding regime.
 
 plant_repeats builds the heavy-tailed seed-occupancy distribution that
 uniform-random genomes lack (SURVEY.md C9 / section 7 hard-part 2); these

@@ -7,7 +7,7 @@ import pytest
 from bitmapperbs_tpu.config import AlignerConfig
 from bitmapperbs_tpu.index.build import build_index
 from bitmapperbs_tpu.index.device import upload_index
-from bitmapperbs_tpu.models.host import map_batch_tpu
+from bitmapperbs_tpu.models.host import map_reads
 from bitmapperbs_tpu.oracle.pipeline import map_batch_se
 from bitmapperbs_tpu import constants as K
 from bitmapperbs_tpu.utils.simulate import random_genome_fasta, simulate_reads
@@ -22,7 +22,7 @@ def setup():
 
 def _compare(idx, dix, cfg, reads):
     oracle = [r.line() for r in map_batch_se(idx, cfg, reads)]
-    device = [r.line() for r in map_batch_tpu(idx, dix, cfg, reads)]
+    device = [r.line() for r in map_reads(idx, dix, cfg, reads)]
     assert oracle == device
     return oracle
 

@@ -12,8 +12,7 @@ from bitmapperbs_tpu.index.build import build_index
 from bitmapperbs_tpu.index.device import upload_index
 from bitmapperbs_tpu.models.aligner import map_batch_device
 from bitmapperbs_tpu.models.host import prepare_batch
-from bitmapperbs_tpu.parallel.shard import (make_sharded_se_mapper,
-                                            upload_index_sharded)
+from bitmapperbs_tpu.parallel.shard import make_sharded_se_mapper
 from bitmapperbs_tpu.utils.simulate import random_genome_fasta, simulate_reads
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
@@ -51,13 +50,43 @@ def test_data_parallel_matches_single_device(setup):
             np.testing.assert_array_equal(got[k], ref[k], err_msg=f"{n}:{k}")
 
 
+@pytest.mark.parametrize("idx_axis", [None, "idx"])
+def test_chunked_mesh_upload_matches_direct(setup, monkeypatch, idx_axis):
+    """Mesh uploads with the chunked path forced (tiny threshold, ragged
+    chunks) equal the direct put in values and placement: replicated, every
+    device's copy equals the single-device upload; sharded over idx, each
+    device holds only its rows."""
+    from bitmapperbs_tpu.index import device as dev
+
+    idx = setup[0]
+    mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ("data", "idx"))
+    single = dev.upload_index(idx)
+    direct = dev.upload_index(idx, mesh=mesh, idx_axis=idx_axis)
+    monkeypatch.setattr(dev, "_PUT_THRESHOLD", 64)
+    monkeypatch.setattr(dev, "_CHUNK_BYTES", 1000)
+    chunked = dev.upload_index(idx, mesh=mesh, idx_axis=idx_axis)
+    for f in ("cp_rows", "cbase", "sa_samples", "n", "g_planes", "klt"):
+        a, b = getattr(direct, f), getattr(chunked, f)
+        assert b.sharding.is_equivalent_to(a.sharding, a.ndim), f
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                      err_msg=f)
+        if b.sharding.is_fully_replicated:
+            want = np.asarray(getattr(single, f))
+            for sh in b.addressable_shards:
+                np.testing.assert_array_equal(np.asarray(sh.data), want,
+                                              err_msg=f"{f} {sh.device}")
+        else:
+            assert {sh.data.shape[0] for sh in b.addressable_shards} == {
+                b.shape[0] // mesh.shape["idx"]}, f
+
+
 def test_sharded_index_matches_replicated(setup):
     idx, cfg, reads, lengths = setup
     dix = upload_index(idx)
     ref = _as_np(map_batch_device(dix, cfg, reads, lengths))
 
     mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ("data", "idx"))
-    dix_s = upload_index_sharded(idx, mesh, "idx")
+    dix_s = upload_index(idx, mesh=mesh, idx_axis="idx")
     reads_s = jax.device_put(reads, NamedSharding(mesh, P("data", None)))
     len_s = jax.device_put(lengths, NamedSharding(mesh, P("data")))
     fn = make_sharded_se_mapper(cfg, mesh, dix_s)
@@ -147,7 +176,7 @@ def test_sharded_index_with_seed_extension(setup):
     ref = _as_np(map_batch_device(dix, cfg, reads, lengths))
 
     mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ("data", "idx"))
-    dix_s = upload_index_sharded(idx, mesh, "idx")
+    dix_s = upload_index(idx, mesh=mesh, idx_axis="idx")
     reads_s = jax.device_put(reads, NamedSharding(mesh, P("data", None)))
     len_s = jax.device_put(lengths, NamedSharding(mesh, P("data")))
     fn = make_sharded_se_mapper(cfg, mesh, dix_s)
